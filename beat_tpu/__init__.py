@@ -1,7 +1,7 @@
 """
-beat_tpu — TPU-native Bayesian earthquake-source inversion framework.
+beat_tpu — Bayesian earthquake-source inversion on an accelerator.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of BEAT
+A from-scratch JAX/XLA re-design of the capabilities of BEAT
 (Bayesian Earthquake Analysis Tool, hvasbath/beat): Bayesian inversion of
 earthquake & volcano sources from seismic waveforms, InSAR/GNSS static
 displacements, and P-wave first-motion polarities.
@@ -12,24 +12,15 @@ Architecture (vs. the reference):
   ``vmap`` over a chains axis replaces the reference's fork pool
   (``beat/parallel.py``), ``jax.sharding`` over a device mesh replaces MPI
   (``beat/sampler/distributed.py``).
-* Green's functions live in HBM-resident arrays; forward modelling is
-  gathers + einsums on the MXU instead of per-draw calls into the pyrocko
-  engine (``beat/pytensorf.py``).
+* Green's functions live in device-resident arrays; forward modelling
+  is gathers + einsums compiled by XLA instead of per-draw calls into
+  the pyrocko engine (``beat/pytensorf.py``).  The package runs on an
+  NVIDIA GPU (the H100 is the measured target) and on the CPU.
 * Samplers (adaptive Metropolis, SMC/transitional MCMC, parallel
   tempering) advance *all* chains in lockstep ``lax.scan`` steps; SMC
   resampling and PT replica exchange are array permutations, not IPC.
 """
 
 __version__ = "0.2.0"
-
-import os as _os
-
-if _os.environ.get("BEAT_TPU_PLATFORM"):
-    # Some environments register TPU PJRT plugins at interpreter start,
-    # overriding JAX_PLATFORMS; this forces the backend explicitly
-    # (e.g. BEAT_TPU_PLATFORM=cpu for host-only runs).
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", _os.environ["BEAT_TPU_PLATFORM"])
 
 from beat_tpu import utility  # noqa: F401

@@ -32,7 +32,7 @@ class _VersionAction(argparse.Action):
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="beat-tpu",
-        description="TPU-native Bayesian earthquake-source inversion",
+        description="Bayesian earthquake-source inversion",
     )
     parser.add_argument("--version", nargs=0, action=_VersionAction,
                         help="framework + backend versions")
@@ -56,24 +56,13 @@ def _cmd_completions(args) -> int:
     return 0
 
 
-def _enable_compile_cache() -> None:
-    """Persist compiled XLA executables across CLI invocations.
-
-    Cold compiles through a remote TPU backend cost tens of seconds per
-    program; a `beat-tpu sample` rerun (resume, prior tweak) re-pays
-    them all without this.  Must run BEFORE the first jax import by any
-    subcommand; honors an existing user setting."""
-    import os
-
-    os.environ.setdefault(
-        "JAX_COMPILATION_CACHE_DIR",
-        os.path.expanduser("~/.beat_tpu/jax_cache"))
-    os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-    os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
-
-
 def main(argv=None) -> int:
-    _enable_compile_cache()
+    # persist compiled executables across invocations: a `beat-tpu
+    # sample` rerun (resume, prior tweak) would otherwise recompile
+    # every step program
+    from beat_tpu.compile_cache import enable_persistent_compile_cache
+
+    enable_persistent_compile_cache()
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.command is None:

@@ -1,20 +1,21 @@
 """
 Persistent XLA compilation cache for library users.
 
-Cold compiles through a remote TPU backend cost seconds to tens of
-seconds per program; the sampler step programs recompile whenever the
-process (or the ``logp`` closure) is new.  The in-process jit cache is
-handled by :meth:`Problem.make_logp_fn` caching its closure; this
-module covers the ACROSS-process axis: compiled executables are
-serialized to disk keyed by their HLO hash, so a rerun of the same
-inversion (resume, bench repetition, CLI invocation) skips the backend
-compile entirely.
+Compiling the sampler's step programs takes seconds per program, and
+they recompile whenever the process (or the ``logp`` closure) is new.
+The in-process jit cache is handled by :meth:`Problem.make_logp_fn`
+caching its closure; this module covers the ACROSS-process axis:
+compiled executables are serialized to disk keyed by their HLO hash, so
+a rerun of the same inversion (resume, bench repetition, CLI
+invocation) skips the compile.
 
-The ``beat-tpu`` CLI enables this via environment variables before jax
-imports (``apps/cli.py:_enable_compile_cache``); library entry points
-call :func:`enable_persistent_compile_cache` which uses the config API
-and therefore works after import too.  A user-set
-``JAX_COMPILATION_CACHE_DIR`` always wins.
+Where the cache lives:
+
+* ``JAX_COMPILATION_CACHE_DIR``, when it is set — JAX reads it itself
+  and nothing here sets another directory;
+* otherwise the fixed path ``<checkout>/.jax_cache`` (listed in
+  ``.gitignore``; the test suite uses the same one), so every process
+  of one checkout finds the same entries.
 """
 
 from __future__ import annotations
@@ -24,31 +25,33 @@ import os
 
 logger = logging.getLogger("beat_tpu.compile_cache")
 
-DEFAULT_DIR = "~/.beat_tpu/jax_cache"
 
-_done = False
+def default_cache_dir() -> str:
+    """``<checkout>/.jax_cache`` — the directory above the package."""
+    return os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".jax_cache")
 
 
-def enable_persistent_compile_cache(cache_dir: str | None = None) -> None:
-    """Idempotently point jax's persistent compilation cache at
-    ``cache_dir`` (default ``~/.beat_tpu/jax_cache``), honoring any
-    existing user configuration.  Safe to call before or after backend
-    initialization; failures (read-only filesystem, exotic backends
-    that cannot serialize executables) degrade to a debug log."""
-    global _done
-    if _done:
-        return
-    _done = True
+def enable_persistent_compile_cache() -> str | None:
+    """Point JAX's persistent compilation cache at
+    :func:`default_cache_dir` unless ``JAX_COMPILATION_CACHE_DIR`` or an
+    earlier configuration already chose one.  Safe to call repeatedly,
+    before or after backend initialization.  Returns the directory in
+    use (``None`` when the default cannot be created)."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+
+    current = jax.config.jax_compilation_cache_dir
+    if current:
+        return current
+    path = default_cache_dir()
     try:
-        import jax
-
-        if (os.environ.get("JAX_COMPILATION_CACHE_DIR")
-                or jax.config.jax_compilation_cache_dir):
-            return  # user already chose a cache location
-        path = os.path.expanduser(cache_dir or DEFAULT_DIR)
         os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception as e:  # pragma: no cover - environment-specific
+    except OSError as e:   # read-only checkout: run without a disk cache
         logger.debug("persistent compile cache unavailable: %s", e)
+        return None
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path

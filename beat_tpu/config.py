@@ -238,7 +238,7 @@ class SeismicConfig:
     #:  ``config.py:628``; import-time only)
     responses_path: str | None = None
     #: reference ``pre_stack_cut`` (``config.py:629``) trims traces to the
-    #: arrival window *before* stacking sources.  The TPU forward always
+    #: arrival window *before* stacking sources.  The device forward always
     #: windows through the fused windowed-iDFT basis — numerically the
     #: pre-cut path — so False is accepted and has no effect.
     pre_stack_cut: bool = True

@@ -13,16 +13,39 @@ noise hyperparameter ``h`` scales a dataset covariance as ``exp(2h)``, so
 
 where ``W`` is the inverse Cholesky factor of the covariance (lower), and
 ``slog_pdet`` its log pseudo-determinant.
+
+Precision: a float32 matmul with no stated precision may run in TF32 on
+the GPU (about three decimal digits).  Whitening by ``W`` amplifies such
+rounding of the synthetics past the sampler's noise (see
+``GreensTable.astype``), so every log-likelihood the samplers evaluate
+is traced under :func:`pinned_precision`.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import jax
 import jax.numpy as jnp
 
 LOG_2PI = math.log(2.0 * math.pi)
+
+#: matmul precision of every likelihood evaluation (see module docstring)
+LIKELIHOOD_PRECISION = "highest"
+
+
+def pinned_precision(fn, precision: str = LIKELIHOOD_PRECISION):
+    """``fn`` traced with every float32 matmul at ``precision``: each
+    ``dot_general`` inside it, nested jits included, carries it in the
+    jaxpr.  The unpinned function stays reachable as ``__wrapped__``."""
+
+    @functools.wraps(fn)
+    def pinned(*args, **kwargs):
+        with jax.default_matmul_precision(precision):
+            return fn(*args, **kwargs)
+
+    return pinned
 
 
 def multivariate_normal_chol(residual, chol_inverse, slog_pdet, hyperparam, nsamples=None):

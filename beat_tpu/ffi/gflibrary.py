@@ -8,7 +8,7 @@ pytensor ``batched_dot`` (``stack_all`` :607-709).  Here:
 * **Construction** is a ``vmap`` over patch parameter arrays straight
   into HBM (no processes, no shared memory);
 * **Stacking** — the kinematic hot kernel — is a fused XLA
-  gather + einsum over the 5-D tensor
+  gather + patch reduction over the 5-D tensor
   ``(ntargets, npatches, ndurations, nstarttimes, nsamples)``, with
   nearest-neighbour or multilinear (4-corner) interpolation exactly as
   the reference quantises (``starttimes2idxs``/``durations2idxs``
@@ -27,6 +27,14 @@ import jax.numpy as jnp
 import numpy as np
 
 logger = logging.getLogger("beat_tpu.ffi.gflibrary")
+
+#: bound on one chain's gathered slab per stacking step.  Measured on
+#: an NVIDIA H100 80GB HBM3 at a 400 W power limit, at the Laquila
+#: shape (12 targets x 500 patches x 512 samples, 2000 chains):
+#: 20-patch blocks (0.49 MB) fuse into the reduction (112 MB
+#: temporaries, 60 ms per stack), 50-patch blocks (1.2 MB) do not
+#: (2.6 GB, 137 ms), and the unblocked sum needs 98 GB.
+STACK_BLOCK_BYTES = 1 << 19
 
 
 # ---------------------------------------------------------------------------
@@ -59,7 +67,7 @@ class GeodeticGFLibrary:
         return next(iter(self.gfs.values())).shape[1]
 
     def stack_all(self, **slips):
-        """Σ_c G_cᵀ·s_c — one MXU matmul per component."""
+        """Σ_c G_cᵀ·s_c — one matmul per component."""
         out = 0.0
         for comp, s in slips.items():
             if s is None:
@@ -178,33 +186,26 @@ class SeismicGFLibrary:
     starttime_sampling: float
     component: str = "uparr"
     reference_times: np.ndarray | None = None  # (ntargets,) trace start wrt event
-    data_tr: jnp.ndarray | None = None  # (T, P, N, D·S_pad) Pallas stacking layout
-    #: 5-D grid shape, kept when ``data`` is dropped (stacking-only mode)
-    shape5: tuple | None = None
-
-    @property
-    def _shape(self):
-        return self.shape5 if self.data is None else tuple(self.data.shape)
 
     @property
     def ntargets(self):
-        return self._shape[0]
+        return self.data.shape[0]
 
     @property
     def npatches(self):
-        return self._shape[1]
+        return self.data.shape[1]
 
     @property
     def ndurations(self):
-        return self._shape[2]
+        return self.data.shape[2]
 
     @property
     def nstarttimes(self):
-        return self._shape[3]
+        return self.data.shape[3]
 
     @property
     def nsamples(self):
-        return self._shape[4]
+        return self.data.shape[4]
 
     # -- index quantisation (reference ffi/base.py:486-568) -----------------
 
@@ -224,58 +225,6 @@ class SeismicGFLibrary:
         factors = ceil - s
         return ceil, factors
 
-    def with_stacking_layout(self, keep_data: bool = True,
-                             dtype=None) -> "SeismicGFLibrary":
-        """Return a copy carrying the Pallas stacking layout
-        ``data_tr`` (lane-gatherable (T, P, N, D·S_pad) transpose; see
-        :mod:`beat_tpu.ops.gfstack`).  Computed once, eagerly.
-
-        keep_data=False drops the 5-D array — HALVES the HBM footprint
-        for production-scale libraries where only the Pallas path runs
-        (the transpose is then built host-side to avoid a device temp;
-        ``stack_all``'s XLA fallback becomes unavailable).
-        dtype=jnp.bfloat16 stores the stacking layout lossily (~1e-2
-        relative per GF sample, f32 accumulation) for another 2×
-        footprint/bandwidth."""
-        dtype = dtype or jnp.float32
-        if self.data_tr is not None:
-            if self.data_tr.dtype != dtype and self.data is None:
-                raise ValueError(
-                    f"existing stacking layout is {self.data_tr.dtype} and "
-                    "the 5-D data was dropped — cannot rebuild as "
-                    f"{jnp.dtype(dtype).name}")
-            if self.data_tr.dtype == dtype:
-                if keep_data or self.data is None:
-                    return self
-                # honor keep_data=False on an existing layout: drop data
-                return SeismicGFLibrary(
-                    data=None, duration_min=self.duration_min,
-                    duration_sampling=self.duration_sampling,
-                    starttime_min=self.starttime_min,
-                    starttime_sampling=self.starttime_sampling,
-                    component=self.component,
-                    reference_times=self.reference_times,
-                    data_tr=self.data_tr,
-                    shape5=self.shape5 or tuple(self.data.shape))
-            # dtype change requested: rebuild from the 5-D data below
-        from beat_tpu.ops.gfstack import (to_stacking_layout,
-                                          to_stacking_layout_chunked)
-
-        if keep_data:
-            data_tr = to_stacking_layout(self.data, dtype)
-        else:
-            # drop-data path = production scale: chunked on-device
-            # transpose (no host round-trip, bounded HBM temp)
-            data_tr = to_stacking_layout_chunked(self.data, dtype)
-        return SeismicGFLibrary(
-            data=self.data if keep_data else None,
-            duration_min=self.duration_min,
-            duration_sampling=self.duration_sampling,
-            starttime_min=self.starttime_min,
-            starttime_sampling=self.starttime_sampling,
-            component=self.component, reference_times=self.reference_times,
-            data_tr=data_tr, shape5=tuple(self.data.shape))
-
     def idxs2durations(self, idxs):
         return idxs * self.duration_sampling + self.duration_min
 
@@ -283,6 +232,13 @@ class SeismicGFLibrary:
         return idxs * self.starttime_sampling + self.starttime_min
 
     # -- the hot kernel -----------------------------------------------------
+
+    def patch_block(self) -> int:
+        """Patches stacked per step: the most whose gathered
+        (ntargets, block, nsamples) slab of one chain stays within
+        :data:`STACK_BLOCK_BYTES`."""
+        slab = self.ntargets * self.nsamples * self.data.dtype.itemsize
+        return max(1, min(self.npatches, STACK_BLOCK_BYTES // slab))
 
     def stack_all(self, durations, starttimes, slips,
                   interpolation="nearest_neighbor"):
@@ -296,51 +252,55 @@ class SeismicGFLibrary:
         slips : (npatches,)
 
         Returns (ntargets, nsamples).
+
+        The patch sum runs in blocks of :meth:`patch_block` patches, so
+        that XLA fuses each block's gather into the reduction and never
+        materialises the (chains, targets, patches, samples) slab under
+        the sampler's vmap.  Plain multiply-and-sum: no matmul, so no
+        precision setting applies.
         """
-        if self.data is None:
-            raise ValueError(
-                "5-D data was dropped (with_stacking_layout(keep_data="
-                "False)) — only the Pallas stack (stack_all_pallas/"
-                "stack_all_auto) is available for this library")
+        if interpolation not in ("nearest_neighbor", "multilinear"):
+            raise NotImplementedError(f"Interpolation {interpolation}")
         data = jnp.asarray(self.data)
         t_idx = jnp.arange(self.ntargets)[:, None]
-        p_idx = jnp.arange(self.npatches)[None, :]
-
         didx, rt_f = self.durations2idxs(durations, interpolation)
         sidx, st_f = self.starttimes2idxs(starttimes, interpolation)
 
-        if interpolation == "nearest_neighbor":
-            gathered = data[t_idx, p_idx, didx[None, :], sidx, :]   # (nt, np, ns)
-            return jnp.einsum("tps,p->ts", gathered, slips)
+        def block(p0, n):
+            def cut(x):
+                return jax.lax.dynamic_slice_in_dim(x, p0, n, axis=-1)
 
-        elif interpolation == "multilinear":
-            d_c = didx[None, :]
-            s_c = sidx
-            g_cc = data[t_idx, p_idx, d_c, s_c, :]
-            g_cf = data[t_idx, p_idx, d_c, s_c - 1, :]
-            g_fc = data[t_idx, p_idx, d_c - 1, s_c, :]
-            g_ff = data[t_idx, p_idx, d_c - 1, s_c - 1, :]
-            # reference weighting (ffi/base.py:680-698): st_f/rt_f are the
-            # floor-cell weights
-            w_cc = (1 - st_f) * (1 - rt_f)[None, :]
-            w_cf = st_f * (1 - rt_f)[None, :]
-            w_fc = (1 - st_f) * rt_f[None, :]
-            w_ff = st_f * rt_f[None, :]
-            stacked = (g_cc * w_cc[..., None] + g_cf * w_cf[..., None]
-                       + g_fc * w_fc[..., None] + g_ff * w_ff[..., None])
-            return jnp.einsum("tps,p->ts", stacked, slips)
+            p_idx = (p0 + jnp.arange(n))[None, :]
+            d_c, s_c = cut(didx)[None, :], cut(sidx)
+            if interpolation == "nearest_neighbor":
+                g = data[t_idx, p_idx, d_c, s_c]             # (nt, n, ns)
+            else:
+                # reference weighting (ffi/base.py:680-698): st_f/rt_f
+                # are the floor-cell weights
+                rf, sf = cut(rt_f)[None, :], cut(st_f)
+                g = (data[t_idx, p_idx, d_c, s_c]
+                     * ((1 - sf) * (1 - rf))[..., None]
+                     + data[t_idx, p_idx, d_c, s_c - 1]
+                     * (sf * (1 - rf))[..., None]
+                     + data[t_idx, p_idx, d_c - 1, s_c]
+                     * ((1 - sf) * rf)[..., None]
+                     + data[t_idx, p_idx, d_c - 1, s_c - 1]
+                     * (sf * rf)[..., None])
+            return jnp.sum(g * cut(slips)[None, :, None], axis=1)
 
-        raise NotImplementedError(f"Interpolation {interpolation}")
+        pb = self.patch_block()
+        n_blocks, rest = divmod(self.npatches, pb)
+        out = block(0, pb)
+        if n_blocks > 1:
+            out = jax.lax.fori_loop(
+                1, n_blocks, lambda i, acc: acc + block(i * pb, pb), out)
+        if rest:
+            out = out + block(n_blocks * pb, rest)
+        return out
 
     # -- persistence (reference save/load ffi/base.py:161-390) ---------------
 
     def save(self, dirpath: str, name: str) -> None:
-        if self.data is None:
-            raise ValueError(
-                "cannot save a library whose 5-D data array was dropped "
-                "(with_stacking_layout(keep_data=False)) — save the "
-                "original library before converting, or rebuild with "
-                "keep_data=True")
         os.makedirs(dirpath, exist_ok=True)
         np.savez_compressed(
             os.path.join(dirpath, f"{name}.npz"),
@@ -362,22 +322,21 @@ class SeismicGFLibrary:
 
 
 def _seislib_flatten(lib: "SeismicGFLibrary"):
-    """Pytree: the 5-D array and the stacking layout are children (jit
-    arguments, shardable over the mesh); grid metadata static."""
+    """Pytree: the 5-D array is the child (a jit argument, shardable
+    over the mesh); grid metadata static."""
     rt = (None if lib.reference_times is None
           else tuple(map(float, np.asarray(lib.reference_times).ravel())))
     aux = (lib.duration_min, lib.duration_sampling, lib.starttime_min,
-           lib.starttime_sampling, lib.component, rt, lib.shape5)
-    return (lib.data, lib.data_tr), aux
+           lib.starttime_sampling, lib.component, rt)
+    return (lib.data,), aux
 
 
 def _seislib_unflatten(aux, children) -> "SeismicGFLibrary":
-    dmin, dsamp, smin, ssamp, component, rt, shape5 = aux
+    dmin, dsamp, smin, ssamp, component, rt = aux
     return SeismicGFLibrary(
         data=children[0], duration_min=dmin, duration_sampling=dsamp,
         starttime_min=smin, starttime_sampling=ssamp, component=component,
-        reference_times=None if rt is None else np.asarray(rt),
-        data_tr=children[1], shape5=shape5)
+        reference_times=None if rt is None else np.asarray(rt))
 
 
 jax.tree_util.register_pytree_node(SeismicGFLibrary, _seislib_flatten,
@@ -463,10 +422,9 @@ def seis_construct_gf_linear(table, wavemap, fault, component="uparr",
         return wins * taper_win[None, None, None, :]
 
     # device-resident assembly: synthesize `batch_patches` patches per
-    # dispatch and splice them into the preallocated 5-D array in HBM —
-    # the library never round-trips through the host (GiB-scale
-    # libraries over a remote/tunnelled device would otherwise pay two
-    # full-size transfers)
+    # dispatch and splice them into the preallocated 5-D array in device
+    # memory — a GiB-scale library never round-trips through the host
+    # (two full-size PCIe transfers)
     batch_block = jax.jit(jax.vmap(patch_block))
 
     @partial(jax.jit, donate_argnums=(0,))

@@ -199,7 +199,7 @@ def mt_surface_displacement(coords, m6, east_shift=0.0, north_shift=0.0,
     coords (N, 2) [m]; m6 = (mnn, mee, mdd, mne, mnd, med) [Nm].
     Returns (N, 3) displacements (E, N, Up).
 
-    Implementation note (TPU-first): the displacement field is exactly
+    Implementation note: the displacement field is exactly
     LINEAR in M, so instead of eigen-decomposing the sampled tensor
     (data-dependent branches + float32 branch flips near degenerate
     eigenvalues — every DC is near-degenerate), M is expanded on a FIXED

@@ -39,7 +39,7 @@ class TakeoffTable:
     follows the sampled source location.  The reference re-ray-traces
     targets and radiation weights each draw when the location is not
     fixed (``beat/pytensorf.py:345-362``) via cake interpolation tables
-    (``beat/heart.py:2333``); this is the TPU-resident equivalent —
+    (``beat/heart.py:2333``); this is the device-resident equivalent —
     the host ray tracer fills the grid once, the gather is pure XLA.
     """
 

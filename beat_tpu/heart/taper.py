@@ -137,7 +137,7 @@ class FilterChain:
 def stf_spectrum_pair(freqs, duration, stf_type: str = "HalfSinusoid"):
     """
     :func:`stf_spectrum` as a real (re, im) pair — the device
-    representation (the deployed TPU backend has no complex dtypes).
+    representation of spectra (:mod:`beat_tpu.ops.cplx`).
     """
     import jax.numpy as jnp
 

@@ -7,8 +7,7 @@ version = "0.2.0"
 
 def runtime_info() -> str:
     """Human-readable framework + backend summary (``beat-tpu --version``)."""
-    lines = [f"beat_tpu {version} — TPU-native Bayesian earthquake-source "
-             "inversion"]
+    lines = [f"beat_tpu {version} — Bayesian earthquake-source inversion"]
     try:
         import jax
 

@@ -15,7 +15,9 @@ import logging
 import jax.numpy as jnp
 import numpy as np
 
-from beat_tpu.distributions import multivariate_normal_chol, multivariate_normal_chol_batched
+from beat_tpu.distributions import (multivariate_normal_chol,
+                                    multivariate_normal_chol_batched,
+                                    pinned_precision)
 from beat_tpu.models.base import Composite
 
 logger = logging.getLogger("beat_tpu.models.distributer")
@@ -157,44 +159,21 @@ class SeismicDistributerComposite(Composite):
     name = "seismic"
 
     def __init__(self, wavemaps_libs, fault, slip_varnames=("uparr",),
-                 interpolation="multilinear", hp_specific=False,
-                 use_pallas: bool | None = None,
-                 stack_precision: str | None = None):
+                 interpolation="multilinear", hp_specific=False):
         """
         wavemaps_libs : list of (WaveformMapping, {component: SeismicGFLibrary})
-        use_pallas : force/disable the fused Pallas stacking kernel
-            (default: auto — on TPU for nearest-neighbour interpolation).
-        stack_precision : Pallas selection-matmul algorithm,
-            'highest' | 'x3' (default) | 'default' — see
-            :func:`beat_tpu.ops.gfstack.stack_all_auto`.
         """
         self.wavemaps_libs = list(wavemaps_libs)
         self.fault = fault
         self.slip_varnames = list(slip_varnames)
         self.interpolation = interpolation
         self.hp_specific = hp_specific
-        self.use_pallas = use_pallas
-        self.stack_precision = stack_precision
-        from beat_tpu.ops.gfstack import want_pallas
-
-        stacking_layout = want_pallas(use_pallas)
-        # production-scale knobs (see STATUS.md): drop the 5-D array
-        # once the Pallas layout exists (halves HBM), optionally store
-        # the layout in bfloat16 (halves it again, ~2e-3 rel. error)
-        import os
-
-        keep_data = os.environ.get("BEAT_TPU_STACK_KEEP_DATA", "1") != "0"
-        dtype = (jnp.bfloat16
-                 if os.environ.get("BEAT_TPU_STACK_DTYPE") == "bfloat16"
-                 else None)
         self._device = []
         for wmap, libs in self.wavemaps_libs:
             if wmap.datasets[0].covariance is None:
                 wmap.analyse_noise()
             dev = {
-                "libs": {c: (lib.with_stacking_layout(keep_data, dtype)
-                             if stacking_layout else lib)
-                         for c, lib in libs.items()},
+                "libs": dict(libs),
                 # fit space: windows, or amplitude spectra for
                 # domain='spectrum' wavemaps — the covariances/weights are
                 # built at nsamples_fit, so the residual must live there
@@ -280,15 +259,10 @@ class SeismicDistributerComposite(Composite):
             shifts = jnp.stack([point[n] for n in ts_names])
             st = st - shifts[:, None]
 
-        from beat_tpu.ops.gfstack import stack_all_auto
-
         synth = 0.0
         for comp in self.slip_varnames:
-            lib = libs[comp]
-            synth = synth + stack_all_auto(lib, durations, st, point[comp],
-                                           self.interpolation,
-                                           use_pallas=self.use_pallas,
-                                           precision=self.stack_precision)
+            synth = synth + libs[comp].stack_all(durations, st, point[comp],
+                                                 self.interpolation)
         return synth
 
     def synthetics_fit(self, point: dict, w_idx: int, data=None):
@@ -405,6 +379,7 @@ def transd_sample_ffi(composite, params, slip_varname: str | None = None,
     # invariant as Problem.make_logp_fn (models/problem.py)
     args = logp_args if logp_args is not None else (composite._device,)
 
+    @pinned_precision
     def logp(slips, device):
         return composite.loglike({comp: slips}, data=device)
 

@@ -1,7 +1,7 @@
 // Native host kernels: eikonal fast-sweeping rupture-onset solver and
 // brute-force nearest-Voronoi-node assignment.
 //
-// TPU-native framework note: the on-device implementations live in
+// Framework note: the on-device implementations live in
 // beat_tpu/ops (JAX/XLA); these C++ versions are the host-side
 // counterparts of the reference's C extensions
 // (beat/fast_sweeping/fast_sweep_ext.c, beat/voronoi/voronoi_ext.c) used

@@ -1,7 +1,7 @@
 """
-Compute kernels: eikonal rupture-front solver, Voronoi assignment, and
-the Green's-function stacking kernels — the TPU-native replacements of
-the reference's C extensions and hot pytensor ops.
+Compute kernels: eikonal rupture-front solver, Voronoi assignment and
+real-pair complex arithmetic — plain JAX replacements of the
+reference's C extensions and hot pytensor ops.
 """
 
 from beat_tpu.ops.eikonal import eikonal_rupture_times, eikonal_rupture_times_numpy  # noqa: F401

@@ -1,12 +1,13 @@
 """
 Real-pair complex arithmetic and DFT-as-matmul.
 
-The TPU backend in this deployment has no complex dtype support (no
-complex transfers, no FFT primitives), so all frequency-domain math on
-device uses float32 arrays with a trailing (re, im) axis, and inverse
-rFFTs become matmuls against precomputed cos/sin bases — which map
-straight onto the MXU and, at waveform sizes (nt ≲ 1k), are faster than
-generic FFTs anyway.
+All frequency-domain math on device uses float32 arrays with a trailing
+(re, im) axis, and inverse rFFTs are matmuls against precomputed cos/sin
+bases, so the per-target windowing and taper fold into one dense
+product.  Whether native complex arithmetic and ``jnp.fft`` are faster
+on the GPU is not measured yet.  The basis products are float32
+matmuls: the likelihood path runs them at ``HIGHEST`` precision
+(:func:`beat_tpu.distributions.pinned_precision`).
 """
 
 from __future__ import annotations

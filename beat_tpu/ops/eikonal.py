@@ -6,8 +6,8 @@ and a nucleation point — the reference solves this with a C fast-sweeping
 extension (Zhao 2004; ``beat/fast_sweeping/fast_sweep_ext.c:120``, numpy
 reference ``fast_sweep.py:67``).
 
-TPU-native design: Gauss-Seidel sweeps are sequential in both grid
-dimensions — hostile to SIMD.  We iterate the same monotone upwind update
+Device design: Gauss-Seidel sweeps are sequential in both grid
+dimensions — hostile to data-parallel hardware.  We iterate the same monotone upwind update
 in *Jacobi* fashion (every cell refreshed from the previous iterate),
 which converges to the identical viscosity solution; each iteration
 advances the front by one cell, so ``lax.while_loop`` with the

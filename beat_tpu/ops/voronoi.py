@@ -2,7 +2,7 @@
 Nearest-Voronoi-node assignment of fault patches.
 
 The reference uses a brute-force O(N·M) C extension
-(``beat/voronoi/voronoi_ext.c:59`` ``GetMinDistances``); on TPU this is
+(``beat/voronoi/voronoi_ext.c:59`` ``GetMinDistances``); on device this is
 one argmin over a pairwise-distance matrix — a trivially fused XLA
 computation that also ``vmap``s over chains of node positions
 (trans-dimensional slip parameterisations, ``config.py:88``

@@ -1,13 +1,16 @@
 """
-Device-mesh helpers: chain-parallel sharding over TPU meshes.
+Device-mesh helpers: chain-parallel sharding over the local devices.
 
 Replaces the reference's process-level runtime wholesale
 (``beat/parallel.py`` fork pools + RawArray shared memory,
 ``beat/sampler/distributed.py`` MPI): Markov chains are rows of device
 arrays sharded over a 1-D ``chains`` mesh axis; Green's-function tables
-and weight matrices are replicated (or sharded when larger than HBM).
-XLA inserts the collectives — swaps and resampling become gathers /
-permutations on sharded arrays, not messages.
+and weight matrices are replicated (or sharded when larger than one
+card's memory).  XLA inserts the collectives (NCCL on GPUs) — swaps and
+resampling become gathers / permutations on sharded arrays, not
+messages.  The cards of one host reach each other all to all at the
+same rate, so meshes follow the algorithm and take ``jax.devices()``
+in order.
 """
 
 from __future__ import annotations
@@ -26,12 +29,13 @@ TARGET_AXIS = "targets"
 
 def make_gf_mesh(n_chain_devices: int, n_target_devices: int) -> Mesh:
     """2-D ``(chains, targets)`` mesh: data-parallel chains × model-
-    parallel GF targets.  The targets axis is the HBM-budget path — a
-    GF library larger than one chip's HBM is split along its station/
+    parallel GF targets.  The targets axis is the memory-budget path — a
+    GF library larger than one card's memory is split along its station/
     target axis, each device stacks its local block and the partial
-    log-likelihoods are ``psum``-reduced over the axis (the TPU analogue
-    of the reference's RawArray GF sharing, ``beat/parallel.py:305-358``,
-    where N workers share one host copy; here N chips each hold 1/N)."""
+    log-likelihoods are ``psum``-reduced over the axis (the device
+    analogue of the reference's RawArray GF sharing,
+    ``beat/parallel.py:305-358``, where N workers share one host copy;
+    here N cards each hold 1/N)."""
     devices = jax.devices()
     need = n_chain_devices * n_target_devices
     if len(devices) < need:
@@ -62,18 +66,11 @@ def sharded_gf_logp(mesh: Mesh, partial_llk, in_specs):
     chain-batched parameters, ``P('targets')``/``P('chains','targets')``
     for per-target arrays, ``P()`` for replicated).
     """
-    try:
-        from jax import shard_map
-        kw = {"check_vma": False}
-    except ImportError:  # pre-0.8 spelling
-        from jax.experimental.shard_map import shard_map
-        kw = {"check_rep": False}
-
     def local(*args):
         return jax.lax.psum(partial_llk(*args), TARGET_AXIS)
 
-    return shard_map(local, mesh=mesh, in_specs=in_specs,
-                     out_specs=P(CHAIN_AXIS), **kw)
+    return jax.shard_map(local, mesh=mesh, in_specs=in_specs,
+                         out_specs=P(CHAIN_AXIS), check_vma=False)
 
 
 def make_chain_mesh(n_devices: int | None = None) -> Mesh:
@@ -133,16 +130,17 @@ def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> int:
     """
-    Join a multi-host JAX runtime (ICI/DCN pod slices): the TPU-native
-    replacement of the reference's MPI launcher
-    (``beat/sampler/distributed.py:95-146`` mpirun + SIGINT cleanup).
+    Join a multi-host JAX runtime: the replacement of the reference's
+    MPI launcher (``beat/sampler/distributed.py:95-146`` mpirun + SIGINT
+    cleanup).
 
-    On TPU pods all arguments auto-resolve from the environment; on CPU
-    /GPU clusters pass them explicitly (or set ``JAX_COORDINATOR_ADDRESS``
-    / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``).  After this call
-    ``jax.devices()`` is GLOBAL across hosts, so :func:`make_chain_mesh`
-    / :func:`make_gf_mesh` build pod-wide meshes unchanged — the chain
-    axis rides DCN between slices, targets stay intra-slice on ICI.
+    Pass the arguments explicitly, or set ``JAX_COORDINATOR_ADDRESS``
+    (``host:port``) / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``;
+    nothing resolves them automatically on a GPU cluster.  After this
+    call ``jax.devices()`` is GLOBAL across hosts, so
+    :func:`make_chain_mesh` / :func:`make_gf_mesh` build cluster-wide
+    meshes unchanged — put the chain axis across hosts and keep the
+    targets axis within a host, where NVLink joins the cards.
 
     Returns this host's process index.  Call once, before any other
     backend-initializing JAX call.

@@ -3,7 +3,7 @@ BEM inversion of a pressurized crack from InSAR (reference Fernandina
 BEM example intent): halfspace triangular-dislocation engine with a
 normal-traction boundary condition.
 
-This example uses the TPU-native LINEAR path
+This example uses the on-device LINEAR path
 (:class:`GeodeticBEMLinearComposite`): the geometry is fixed, the
 unit-traction LOS responses are precomputed once, and every likelihood
 evaluation is an on-device matvec — so the SMC runs at full lockstep

@@ -19,8 +19,8 @@ Expected result (n_chains=500): MT direction cosine vs GCMT > 0.97,
 magnitude ≈ 5.85, origin-time shift ≈ -12 s, depth ≈ 7-8 km.
 
 Run:  python examples/fullmt_real_data.py [workdir]
-      (~5 min on the 1-core CPU host: ~1 min table build + sampling;
-      faster on a TPU chip)
+      (~5 min on a 1-core CPU host: ~1 min table build + sampling;
+      GPU time not measured)
 """
 
 import os

@@ -3,8 +3,8 @@ FullMT-style moment-tensor inversion (reference docs example
 ``docs/examples/FullMT_regional.rst``): synthesize waveforms from a
 known mechanism, invert the full MT + depth + time + duration with SMC.
 
-Run:  python examples/fullmt_smc.py [outdir]  (~2 min on a TPU chip,
-longer on CPU; shrink N_CHAINS/N_STEPS for a smoke run)
+Run:  python examples/fullmt_smc.py [outdir]  (GPU wall time not
+measured yet; shrink N_CHAINS/N_STEPS for a smoke run on the CPU)
 """
 
 import sys

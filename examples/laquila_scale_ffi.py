@@ -4,7 +4,7 @@ example scale, ``docs/examples/FFI_kinematic.rst``: ~500 patches, GF
 library in the GiB range, reference build time ~15 h on 25 CPUs and
 SMC n_chains 5000-8000).
 
-What this script does, on one TPU chip:
+What this script does, on one GPU:
 
 1. builds the 5-D seismic GF library natively at Laquila scale
    (default 12 targets x 500 patches x 10 durations x 32 starttimes x
@@ -13,8 +13,10 @@ What this script does, on one TPU chip:
    rupture-velocity field;
 3. runs lockstep SMC over the FULL kinematic parameter space
    (uparr + durations + velocities + nucleation, ~1500 dimensions at
-   500 patches) with the fused Pallas stacking kernel, and reports the
-   per-evaluation wall-clock and evals/s at n_chains=2000.
+   500 patches) through ``SeismicGFLibrary.stack_all`` — its patch-
+   blocked sum keeps the 2000-chain stack within one card's memory —
+   and reports the per-evaluation wall-clock and evals/s at
+   n_chains=2000.
 
 By default the stage count is capped (`--max-stages`) — the point here
 is demonstrating production scale end-to-end on a single chip, not a
@@ -48,7 +50,7 @@ def main(argv=None):
     ap.add_argument("--chains", type=int, default=2000)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--max-stages", type=int, default=4)
-    ap.add_argument("--outdir", default="/tmp/laquila_scale_ffi")
+    ap.add_argument("--outdir", default="laquila_scale_run")
     args = ap.parse_args(argv)
 
     import jax
@@ -126,9 +128,6 @@ def main(argv=None):
                             ).astype(np.float32)
     for ds in wavemap.datasets:
         ds.covariance = Covariance(data=np.eye(nwin) * sd**2)
-
-    # big libraries: stacking-only layout (halves the HBM footprint)
-    lib = lib.with_stacking_layout(keep_data=gib < 1.0)
 
     # --- full kinematic problem ------------------------------------------
     comp = SeismicDistributerComposite(

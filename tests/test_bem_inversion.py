@@ -74,7 +74,7 @@ class TestBEMComposite:
 
     def test_smc_recovers_traction_linear(self, setup, tmp_path):
         """Fixed geometry → the linear BEM composite samples tractions
-        fully on-device (precomputed unit responses): the TPU-native BEM
+        fully on-device (precomputed unit responses): the on-device BEM
         inversion path."""
         from beat_tpu.models.bem import GeodeticBEMLinearComposite
 

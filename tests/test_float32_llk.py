@@ -1,12 +1,13 @@
 """
 Float32 device-likelihood verification against a float64 host reference
-(SURVEY §7 hard part 6): TPU f64 is emulated, so the production
-likelihood runs in f32 — this quantifies the error at realistic scales
-(nsamples ≥ 1024, covariance condition number ≥ 1e6) and asserts the
-quantity that matters for sampling: the error in log-likelihood
-DIFFERENCES between nearby points (which sets accept-probability
-distortion), not the absolute llk value (a common bias cancels in the
-Metropolis ratio and in importance weights).
+(SURVEY §7 hard part 6): the production likelihood runs in float32 —
+this quantifies the error at realistic scales (nsamples ≥ 1024,
+covariance condition number ≥ 1e6) and asserts the quantity that
+matters for sampling: the error in log-likelihood DIFFERENCES between
+nearby points (which sets accept-probability distortion), not the
+absolute llk value (a common bias cancels in the Metropolis ratio and
+in importance weights).  The harness is ``chip_smoke.f32_llk_check``,
+which the smoke check also runs on the card.
 """
 
 import numpy as np
@@ -15,67 +16,21 @@ import pytest
 import jax.numpy as jnp
 
 from beat_tpu.distributions import multivariate_normal_chol
+from chip_smoke import f32_llk_check
 
 
-def _correlated_cov(n, corr_len=30.0, nugget=1e-7, sigma=1.0, kind="gauss"):
-    """Correlated covariance with a small nugget.  The squared-exponential
-    kernel is notoriously ill-conditioned — condition numbers ≥ 1e6 at
-    these defaults (the regime SURVEY §7 flags for f32 likelihoods)."""
+def _correlated_cov(n, corr_len=30.0, nugget=1e-7, sigma=1.0):
     idx = np.arange(n)
     d = np.abs(idx[:, None] - idx[None, :]) / corr_len
-    C = sigma**2 * (np.exp(-d * d) if kind == "gauss" else np.exp(-d))
-    C += nugget * sigma**2 * np.eye(n)
-    return C
-
-
-def _llk64(res, chol_inv, log_pdet, h):
-    tmp = chol_inv @ res
-    n = res.size
-    return -0.5 * (log_pdet + n * (2 * h + np.log(2 * np.pi))
-                   + np.exp(-2 * h) * tmp @ tmp)
+    return sigma**2 * (np.exp(-d * d) + nugget * np.eye(n))
 
 
 class TestFloat32Likelihood:
     @pytest.mark.parametrize("n,corr_len", [(1024, 30.0), (2048, 80.0)])
     def test_llk_differences_beat_sampler_noise(self, n, corr_len):
-        rng = np.random.default_rng(3)
-        C = _correlated_cov(n, corr_len=corr_len)
-        cond = np.linalg.cond(C)
-        assert cond > 1e6  # the regime SURVEY flags
-
-        L = np.linalg.cholesky(C)
-        chol_inv64 = np.linalg.inv(L)
-        sign, log_pdet64 = np.linalg.slogdet(C)
-        assert sign > 0
-
-        # realistic residual: correlated noise + a coherent signal misfit
-        base = L @ rng.normal(size=n) + 0.3 * np.sin(np.arange(n) / 25.0)
-
-        chol_inv32 = jnp.asarray(chol_inv64, dtype=jnp.float32)
-        lp32 = jnp.float32(log_pdet64)
-        h = 0.1
-
-        # family of nearby residuals (proposal-step-sized perturbations)
-        deltas = [rng.normal(size=n) * s for s in (0.0, 1e-3, 1e-2, 0.1)]
-        llks32, llks64 = [], []
-        for d in deltas:
-            r = base + d
-            llks64.append(_llk64(r, chol_inv64, log_pdet64, h))
-            llks32.append(float(multivariate_normal_chol(
-                jnp.asarray(r, dtype=jnp.float32), chol_inv32, lp32,
-                jnp.float32(h))))
-        llks32 = np.asarray(llks32)
-        llks64 = np.asarray(llks64)
-
-        # absolute f32 error is allowed to be O(1) in llk units…
-        abs_err = np.abs(llks32 - llks64).max()
-        # …but log-likelihood DIFFERENCES (what enters the accept ratio
-        # and the SMC importance weights) must be accurate to ≪ 1.
-        d32 = llks32[1:] - llks32[0]
-        d64 = llks64[1:] - llks64[0]
-        diff_err = np.abs(d32 - d64).max()
-        assert diff_err < 0.15 * max(np.abs(d64).max(), 1.0), \
-            (abs_err, diff_err, d64)
+        out = f32_llk_check(n, corr_len)
+        assert out["cond"] > 1e6
+        assert out["diff_err"] < out["diff_tol"]
 
     def test_batched_matches_single(self):
         rng = np.random.default_rng(1)

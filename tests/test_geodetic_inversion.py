@@ -1,7 +1,7 @@
 """
 End-to-end geodetic geometry inversion: synthetic InSAR scene from a
 known rectangular source, SMC recovery of the source parameters — the
-TPU-native analogue of the reference Rectangular docs example
+JAX analogue of the reference Rectangular docs example
 (``docs/examples/Rectangular.rst``) at toy scale.
 """
 

@@ -1,5 +1,5 @@
 """Profiling subsystem: per-stage timing registry, time_method,
-JAX-profiler hook, slope-method per-eval timing (SURVEY §5)."""
+JAX-profiler hook, per-eval device timing (SURVEY §5)."""
 
 import json
 import os
@@ -9,8 +9,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from beat_tpu.profiling import (TimingRegistry, jax_trace, stage_timer,
-                                time_method, time_per_sample, timings)
+from beat_tpu.profiling import (TimingRegistry, batched_logp, jax_trace,
+                                stage_timer, time_method, time_per_sample,
+                                timings)
 
 
 def test_registry_and_stage_timer():
@@ -62,6 +63,44 @@ def test_time_per_sample_slope():
                     dtype=jnp.float32)
     dt = time_per_sample(logp, q)
     assert 0 < dt < 1.0  # seconds per lockstep eval, sane on CPU
+
+
+def _consts(closed):
+    """Constants of ``closed`` and of every jaxpr nested in it."""
+    from jax.extend import core as jcore
+
+    out = list(closed.consts)
+    for eqn in closed.jaxpr.eqns:
+        for v in eqn.params.values():
+            for sub in (v if isinstance(v, (tuple, list)) else (v,)):
+                if isinstance(sub, jcore.ClosedJaxpr):
+                    out += _consts(sub)
+    return out
+
+
+def test_timed_program_has_no_large_constants(tmp_path):
+    """time_per_sample's program takes the GF table as a jit argument:
+    no constant of its jaxpr reaches 1 MB although the table is 1.95 MB —
+    a closure over the data would fold the whole table in."""
+    import jax
+
+    from __graft_entry__ import _build_flagship
+
+    problem = _build_flagship(n_stations=4, nt=256, n_distances=21,
+                              outfolder=str(tmp_path / "out"))
+    logp, data = problem.make_logp_fn()
+    assert data[0][0]["table"].spectra.nbytes > 1.9e6
+    lower, upper = problem.priors.bounds_arrays()
+    q = jnp.asarray(np.random.default_rng(0).uniform(
+        lower, upper, size=(4, lower.size)), dtype=jnp.float32)
+
+    sizes = [np.asarray(c).nbytes
+             for c in _consts(jax.make_jaxpr(batched_logp(logp, 1))(q, data))]
+    assert all(b < 1e6 for b in sizes), sorted(sizes)[-3:]
+    # the check bites: the closure form carries the table as a constant
+    closed = jax.jit(jax.vmap(lambda x: logp(x, data)))
+    assert max(np.asarray(c).nbytes
+               for c in _consts(jax.make_jaxpr(closed)(q))) > 1.9e6
 
 
 def test_smc_dumps_timings(tmp_path):

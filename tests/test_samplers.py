@@ -213,7 +213,7 @@ class TestPT:
 
 
 class TestMALA:
-    """Gradient-based MALA step (a TPU-first capability: JAX autodiff
+    """Gradient-based MALA step (a JAX-native capability: autodiff
     provides gradients the reference's random-walk samplers never use)."""
 
     def test_gaussian_posterior_exact(self):
